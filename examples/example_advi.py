@@ -1,9 +1,9 @@
-"""Fit a Gaussian target with ADVI / ELBO maximization (TPU-native).
+"""Fit a Gaussian target with ADVI / ELBO maximization.
 
 Mirrors the reference examples/example_advi.py: D=4, adam(1e-2), batch 16 —
 then polishes the fit with the STL (sticking-the-landing) gradient
 estimator, which keeps contracting below the default estimator's Adam
-variance floor (docs/DERIVATIONS.md section 8).
+variance floor (docs/DERIVATIONS.md section 7).
 
 Run: python examples/example_advi.py
 """
@@ -12,8 +12,8 @@ import jax
 import numpy as np
 import optax
 
-from gsmvi_tpu import ADVI
-from gsmvi_tpu.models import dense_gaussian
+from gsmvi_jax import ADVI
+from gsmvi_jax.models import dense_gaussian
 
 if __name__ == "__main__":
     D = 4
@@ -30,7 +30,6 @@ if __name__ == "__main__":
     print("neg-ELBO  : ", losses[0], "->", losses[-1])
 
     # Two-phase accuracy recipe: warm-start an STL polish from the bulk fit.
-    # (On TPU, run the bulk phase with advi.fit_fused — ~1M it/s at D=64.)
     mean_stl, cov_stl, _ = advi.fit(
         jax.random.PRNGKey(100), optax.adam(2e-3), mean=mean_fit,
         cov=cov_fit, batch_size=16, niter=4000, estimator="stl",

@@ -1,8 +1,8 @@
-"""Fit a Gaussian target with Batch-and-Match, low-rank updates (TPU-native).
+"""Fit a Gaussian target with Batch-and-Match, low-rank updates.
 
 Mirrors the reference examples/example_bam.py config: D=5, 100 iterations,
 batch 2, custom regularizer 100/(1+i), validated with np.allclose — but runs
-fully on device on any backend (the reference raises on TPU).
+fully on device on any backend (the reference needs a host sqrtm).
 
 Run: python examples/example_bam.py
 """
@@ -10,8 +10,8 @@ Run: python examples/example_bam.py
 import jax
 import numpy as np
 
-from gsmvi_tpu import BaM, Regularizers
-from gsmvi_tpu.models import dense_gaussian
+from gsmvi_jax import BaM, Regularizers
+from gsmvi_jax.models import dense_gaussian
 
 if __name__ == "__main__":
     D = 5

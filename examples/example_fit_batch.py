@@ -1,15 +1,12 @@
 """K independent fits in one compiled program (vmapped replicas).
 
-No reference equivalent: this is TPU-native batching of whole fits — K
-random-restart replicas (or per-replica warm starts) whose small per-step
-matmuls batch into MXU-filling ops.
+No reference equivalent: this batches whole fits — K random-restart
+replicas (or per-replica warm starts) whose small per-step matmuls batch
+into ops large enough to fill the device.
 
-On TPU the GSM class delegates this to ``FactorGSM.fit_batch`` (the
-batched eps-coordinate step); ``FactorGSM.fit_batch(small_solver="fused",
-pallas_score=...)`` additionally offers the K-replica fused Pallas kernel,
-whose replicas are bit-identical to same-key single fused fits (the
-trajectory-exact batched option — see docs/BENCHMARKS.md round 5 for the
-measured throughput trade).
+``GSM(use_factor=True)`` delegates this to ``FactorGSM.fit_batch`` (the
+batched eps-coordinate step, with a matmul-only Newton-Schulz small space
+by default).
 
 Run: python examples/example_fit_batch.py
 """
@@ -17,8 +14,8 @@ Run: python examples/example_fit_batch.py
 import jax
 import numpy as np
 
-from gsmvi_tpu import GSM
-from gsmvi_tpu.models import dense_gaussian
+from gsmvi_jax import GSM
+from gsmvi_jax.models import dense_gaussian
 
 if __name__ == "__main__":
     D, K = 16, 8

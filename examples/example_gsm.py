@@ -1,9 +1,9 @@
-"""Fit a dense-covariance Gaussian target with GSM (TPU-native).
+"""Fit a dense-covariance Gaussian target with GSM.
 
 Mirrors the reference example (examples/example_gsm.py in modichirag/GSM-VI):
 build a random MVN target, fit 500 iterations, compare means.  No numpyro
 needed — the target zoo provides the model; to use numpyro instead, see
-``gsmvi_tpu.models.numpyro_compat``.
+``gsmvi_jax.models.numpyro_compat``.
 
 Run: python examples/example_gsm.py
 """
@@ -11,8 +11,8 @@ Run: python examples/example_gsm.py
 import jax
 import numpy as np
 
-from gsmvi_tpu import GSM
-from gsmvi_tpu.models import dense_gaussian
+from gsmvi_jax import GSM
+from gsmvi_jax.models import dense_gaussian
 
 if __name__ == "__main__":
     D = 10

@@ -1,14 +1,14 @@
 """Zero-dependency GSM fit in pure numpy (reference examples/example_gsm_numpy.py).
 
 Uses only numpy: hand-written Gaussian log-prob/score and the vectorized
-numpy GSM from ``gsmvi_tpu.compat`` (int-seed API).
+numpy GSM from ``gsmvi_jax.compat`` (int-seed API).
 
 Run: python examples/example_gsm_numpy.py
 """
 
 import numpy as np
 
-from gsmvi_tpu.compat.gsm_numpy import GSM
+from gsmvi_jax.compat.gsm_numpy import GSM
 
 
 def setup_model(d=10, seed=42):

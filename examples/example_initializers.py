@@ -1,4 +1,4 @@
-"""LBFGS initialization + KL monitoring for GSM and ADVI (TPU-native).
+"""LBFGS initialization + KL monitoring for GSM and ADVI.
 
 Mirrors the reference examples/example_initializers.py: initialize the
 variational distribution from an LBFGS MAP fit, monitor reverse KL vs the
@@ -11,8 +11,8 @@ import jax
 import numpy as np
 import optax
 
-from gsmvi_tpu import ADVI, GSM, KLMonitor, lbfgs_init
-from gsmvi_tpu.models import dense_gaussian
+from gsmvi_jax import ADVI, GSM, KLMonitor, lbfgs_init
+from gsmvi_jax.models import dense_gaussian
 
 
 def gsm_fit(target, mean_init, cov_init, lbfgs_res):

@@ -1,7 +1,7 @@
 """Large-D fit on a 2-D (data x model) mesh with a sharded covariance.
 
 No reference equivalent (the reference is single-device with O(D^2) state
-replicated by construction).  This is the TPU-native large-D path:
+replicated by construction).  This is the large-D path:
 
 - the MC batch shards over the ``data`` axis (score evals data-parallel);
 - the (D, D) covariance column-shards over the ``model`` axis
@@ -19,9 +19,9 @@ Try locally without a pod:
 import jax
 import numpy as np
 
-from gsmvi_tpu import GSM
-from gsmvi_tpu.models import dense_gaussian
-from gsmvi_tpu.parallel import cov_sharding, make_mesh_2d
+from gsmvi_jax import GSM
+from gsmvi_jax.models import dense_gaussian
+from gsmvi_jax.parallel import cov_sharding, make_mesh_2d
 
 if __name__ == "__main__":
     n = len(jax.devices())

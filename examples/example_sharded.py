@@ -1,23 +1,23 @@
 """Data-parallel GSM fit over all available devices.
 
 No reference equivalent (the reference is single-device); this is the
-TPU-native scaling path: the Monte-Carlo batch shards over a 1-D device mesh
-and XLA reduces the score statistics over ICI.
+scaling path: the Monte-Carlo batch shards over a 1-D device mesh and XLA
+reduces the score statistics across devices (NVLink on one GPU host).
 
-Try locally without a pod:
+Try locally without a cluster:
   XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
       python examples/example_sharded.py
-On a multi-host pod slice, first call
-  from gsmvi_tpu.parallel import initialize_distributed
+On a multi-host cluster, first call
+  from gsmvi_jax.parallel import initialize_distributed
   initialize_distributed(auto=True)
 """
 
 import jax
 import numpy as np
 
-from gsmvi_tpu import GSM
-from gsmvi_tpu.models import ill_conditioned_gaussian
-from gsmvi_tpu.parallel import make_mesh
+from gsmvi_jax import GSM
+from gsmvi_jax.models import ill_conditioned_gaussian
+from gsmvi_jax.parallel import make_mesh
 
 if __name__ == "__main__":
     n = len(jax.devices())

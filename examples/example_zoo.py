@@ -1,11 +1,8 @@
-"""Fit every target-zoo family through the one-kernel fused GSM path.
+"""Fit every target-zoo family with the factor-state GSM fitter.
 
-Every zoo constructor attaches ``target.pallas_score`` — an analytic,
-Pallas-traceable score — so on TPU the ENTIRE GSM iteration (on-chip PRNG,
-sampling, score, rank-2B update, exact PD check, select) runs as one
-VMEM-resident kernel (``ops/pallas/fused_step.py``).  Off-TPU the same
-``FactorGSM`` call transparently uses the XLA eps path, so this example
-runs anywhere:
+Each zoo constructor returns a ``Target`` with jitted ``lp``/``lp_g``;
+``FactorGSM`` runs the eps-coordinate step (sampling, score, rank-2B
+update, exact PD check, select) as one compiled scan on any backend:
 
   PYTHONPATH=. JAX_PLATFORMS=cpu python examples/example_zoo.py
 
@@ -16,8 +13,8 @@ only (``/root/reference/examples/example_gsm.py:20-35``).
 import jax
 import numpy as np
 
-from gsmvi_tpu import FactorGSM
-from gsmvi_tpu.models import (banana, dense_gaussian, funnel,
+from gsmvi_jax import FactorGSM
+from gsmvi_jax.models import (banana, dense_gaussian, funnel,
                               gaussian_mixture, logistic_regression,
                               student_t)
 
@@ -32,8 +29,7 @@ if __name__ == "__main__":
         logistic_regression(jax.random.PRNGKey(4), D, n_data=128),
     ]
     for t in targets:
-        fg = FactorGSM(D=D, lp=t.lp, lp_g=t.lp_g,
-                       pallas_score=t.pallas_score)
+        fg = FactorGSM(D=D, lp=t.lp, lp_g=t.lp_g)
         mean, cov = fg.fit(jax.random.PRNGKey(0), niter=NITER, batch_size=B,
                            verbose=False)
         m = np.asarray(mean)

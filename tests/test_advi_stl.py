@@ -18,8 +18,8 @@ import numpy as np
 import optax
 import pytest
 
-from gsmvi_tpu import ADVI
-from gsmvi_tpu.models import dense_gaussian
+from gsmvi_jax import ADVI
+from gsmvi_jax.models import dense_gaussian
 
 
 def _params_at(t):
@@ -88,7 +88,7 @@ def test_stl_polish_beats_analytic_floor():
     """Started exactly AT the optimum, the analytic estimator diffuses away
     to its stationary variance floor (Adam keeps taking ~lr-sized steps on
     MC-noisy gradients) while STL stays pinned — the 'polish' phase of the
-    two-phase recipe (docs/BENCHMARKS.md) in its purest form."""
+    two-phase recipe (docs/DERIVATIONS.md §7) in its purest form."""
     d = 12
     t = dense_gaussian(jax.random.PRNGKey(7), d)
     errs = {}
@@ -109,7 +109,7 @@ def test_stl_polish_beats_analytic_floor():
 def test_stl_under_mesh_runs():
     """estimator='stl' composes with the data mesh (the triangular solve is
     per-row independent, so GSPMD shards it with the batch)."""
-    from gsmvi_tpu.parallel.mesh import make_mesh
+    from gsmvi_jax.parallel.mesh import make_mesh
 
     if len(jax.devices()) < 2:
         pytest.skip("needs multiple (virtual) devices")

@@ -1,26 +1,26 @@
 """API surface parity with the reference (import paths, signatures, defaults).
 
 Reference users must be able to switch with their call sites unchanged:
-``from gsmvi.gsm import GSM`` -> ``from gsmvi_tpu.gsm import GSM`` etc.
+``from gsmvi.gsm import GSM`` -> ``from gsmvi_jax.gsm import GSM`` etc.
 """
 
 import inspect
 
 
 def test_reference_style_imports():
-    from gsmvi_tpu.gsm import GSM            # noqa: F401
-    from gsmvi_tpu.bam import BaM, Regularizers  # noqa: F401
-    from gsmvi_tpu.advi import ADVI          # noqa: F401
-    from gsmvi_tpu.utils.monitors import KLMonitor  # noqa: F401
-    from gsmvi_tpu.utils.initializers import lbfgs_init  # noqa: F401
-    from gsmvi_tpu.compat.gsm_numpy import GSM as NumpyGSM  # noqa: F401
+    from gsmvi_jax.gsm import GSM            # noqa: F401
+    from gsmvi_jax.bam import BaM, Regularizers  # noqa: F401
+    from gsmvi_jax.advi import ADVI          # noqa: F401
+    from gsmvi_jax.utils.monitors import KLMonitor  # noqa: F401
+    from gsmvi_jax.utils.initializers import lbfgs_init  # noqa: F401
+    from gsmvi_jax.compat.gsm_numpy import GSM as NumpyGSM  # noqa: F401
 
 
 def test_gsm_fit_defaults_match_reference():
     """Reference: fit(key, mean=None, cov=None, batch_size=2, niter=5000,
     nprint=10, verbose=True, check_goodness=True, monitor=None)
     (gsmvi/gsm.py:79)."""
-    from gsmvi_tpu.gsm import GSM
+    from gsmvi_jax.gsm import GSM
 
     sig = inspect.signature(GSM.fit)
     p = sig.parameters
@@ -36,7 +36,7 @@ def test_gsm_fit_defaults_match_reference():
 def test_bam_fit_defaults_match_reference():
     """Reference: fit(key, regf, ..., retries=10, jitter=1e-6)
     (gsmvi/bam.py:140)."""
-    from gsmvi_tpu.bam import BaM
+    from gsmvi_jax.bam import BaM
 
     sig = inspect.signature(BaM.fit)
     p = sig.parameters
@@ -47,7 +47,7 @@ def test_bam_fit_defaults_match_reference():
 
 
 def test_bam_ctor_flags():
-    from gsmvi_tpu.bam import BaM
+    from gsmvi_jax.bam import BaM
 
     p = inspect.signature(BaM.__init__).parameters
     assert p["use_lowrank"].default is False
@@ -57,7 +57,7 @@ def test_bam_ctor_flags():
 def test_advi_signatures():
     """Reference: ADVI(D, lp); fit(key, opt, ..., batch_size=8)
     (gsmvi/advi.py:14,47 — reference default batch_size is 8)."""
-    from gsmvi_tpu.advi import ADVI
+    from gsmvi_jax.advi import ADVI
 
     ctor = inspect.signature(ADVI.__init__).parameters
     assert list(ctor)[:3] == ["self", "D", "lp"]
@@ -67,7 +67,7 @@ def test_advi_signatures():
 
 
 def test_monitor_attributes():
-    from gsmvi_tpu.utils.monitors import KLMonitor
+    from gsmvi_jax.utils.monitors import KLMonitor
 
     mon = KLMonitor()
     assert mon.batch_size_kl == 8
@@ -79,7 +79,7 @@ def test_monitor_attributes():
 
 
 def test_regularizer_api():
-    from gsmvi_tpu.bam import Regularizers
+    from gsmvi_jax.bam import Regularizers
 
     r = Regularizers()
     assert hasattr(r, "counter") and r.counter == 0

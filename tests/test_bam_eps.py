@@ -12,9 +12,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gsmvi_tpu.bam_factor import FactorBaM
-from gsmvi_tpu.ops.bam import Regularizers, bam_update
-from gsmvi_tpu.ops.bam_eps import bam_eps_update
+from gsmvi_jax.bam_factor import FactorBaM
+from gsmvi_jax.ops.bam import Regularizers, bam_update
+from gsmvi_jax.ops.bam_eps import bam_eps_update
 
 
 @pytest.mark.parametrize("b,d,reg", [(2, 5, 100.0), (8, 16, 0.5),
@@ -61,7 +61,7 @@ def test_f32_accuracy(rng):
 
 @pytest.mark.parametrize("solver", ["svd", "auto"])
 def test_f32_svd_solver_stiff_regime(rng, solver):
-    """The round-2 TPU stall: large reg x large scores make kappa(Y) ~ 1e4+,
+    """The round-2 f32 stall: large reg x large scores make kappa(Y) ~ 1e4+,
     where the Gram-eigh route's kappa^2 exceeds f32 and the contraction
     weights go wrong by O(1e-1) (mean stalls at D=256 on dense_gaussian).
     The default SVD solver resolves the spectrum at kappa(Y) accuracy; pin
@@ -95,7 +95,7 @@ def test_f32_svd_solver_stiff_regime(rng, solver):
 
 
 def test_fitter_end_to_end_recovery():
-    from gsmvi_tpu.models import dense_gaussian
+    from gsmvi_jax.models import dense_gaussian
 
     t = dense_gaussian(jax.random.PRNGKey(3), 16)
     bam = FactorBaM(D=t.d, lp=t.lp, lp_g=t.lp_g)
@@ -112,8 +112,8 @@ def test_fitter_matches_dense_bam_trajectory():
     """With cov=I the first factor equals chol(I); identical eps streams mean
     the FIRST step must agree with dense BaM exactly; later steps use
     different square roots and agree only in distribution."""
-    from gsmvi_tpu import BaM
-    from gsmvi_tpu.models import dense_gaussian
+    from gsmvi_jax import BaM
+    from gsmvi_jax.models import dense_gaussian
 
     t = dense_gaussian(jax.random.PRNGKey(3), 8)
     kw = dict(niter=0, batch_size=4, verbose=False, retries=0)
@@ -128,8 +128,8 @@ def test_fitter_matches_dense_bam_trajectory():
 
 
 def test_retries_and_monitoring():
-    from gsmvi_tpu.models import dense_gaussian
-    from gsmvi_tpu.utils.monitors import KLMonitor
+    from gsmvi_jax.models import dense_gaussian
+    from gsmvi_jax.utils.monitors import KLMonitor
 
     t = dense_gaussian(jax.random.PRNGKey(3), 8)
     mon = KLMonitor(batch_size_kl=16, checkpoint=20)
@@ -155,8 +155,8 @@ def test_update_corr_converges_in_stiff_centered_regime():
     the default sweep count must hold the floor there."""
     import inspect
 
-    from gsmvi_tpu.ops.bam_eps import bam_eps_update
-    from gsmvi_tpu.ops.gsm_factor import _update_corr
+    from gsmvi_jax.ops.bam_eps import bam_eps_update
+    from gsmvi_jax.ops.gsm_factor import _update_corr
 
     default_iters = inspect.signature(bam_eps_update).parameters[
         "newton_iters"].default

@@ -1,17 +1,16 @@
-"""BaM's factor-route delegation (round-4): on TPU with a traceable lp_g,
-``BaM.fit`` runs the FactorBaM eps algebra (identical math, no D x D
-factorizations) while keeping the dense VIState surface.  CPU tests drive it
-by monkeypatching the module's on_tpu — the delegated fit then runs the XLA
-factor path."""
+"""BaM's factor-route delegation: with ``use_factor=True`` and a traceable
+lp_g, ``BaM.fit`` runs the FactorBaM eps algebra (identical math, no D x D
+factorizations) while keeping the dense VIState surface.
+``use_factor="auto"`` keeps the dense path on every platform."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gsmvi_tpu import BaM, FactorBaM, Regularizers
-from gsmvi_tpu.models import dense_gaussian
-from gsmvi_tpu.state import VIState
+from gsmvi_jax import BaM, FactorBaM, Regularizers
+from gsmvi_jax.models import dense_gaussian
+from gsmvi_jax.state import VIState
 
 
 @pytest.fixture
@@ -19,17 +18,14 @@ def target():
     return dense_gaussian(jax.random.PRNGKey(7), 6, scale=0.5)
 
 
-def _tpu_bam(monkeypatch, t, **kw):
-    import gsmvi_tpu.bam as bam_mod
-
-    monkeypatch.setattr(bam_mod, "on_tpu", lambda: True)
+def _factor_bam(t, **kw):
+    kw.setdefault("use_factor", True)
     return BaM(D=t.d, lp=t.lp, lp_g=t.lp_g, **kw)
 
 
-def test_auto_routes_to_factor_on_tpu_and_matches_factorbam(monkeypatch,
-                                                            target):
+def test_use_factor_true_matches_factorbam(target):
     t = target
-    g = _tpu_bam(monkeypatch, t)
+    g = _factor_bam(t)
     assert g._factor_route(True)
     regf = Regularizers().linear(20.0)
     m, c = g.fit(jax.random.PRNGKey(0), regf=regf, niter=300, batch_size=8,
@@ -45,10 +41,10 @@ def test_auto_routes_to_factor_on_tpu_and_matches_factorbam(monkeypatch,
     assert float(np.max(np.abs(np.asarray(c) - np.asarray(t.cov)))) < 0.1
 
 
-def test_off_tpu_auto_keeps_dense_path(target):
+def test_auto_keeps_dense_path(target):
     t = target
     g = BaM(D=t.d, lp=t.lp, lp_g=t.lp_g)
-    assert not g._factor_route(True)  # CPU tests: on_tpu() is False
+    assert not g._factor_route(True)  # "auto": dense on every platform
 
 
 def test_use_factor_true_forces_route_anywhere(target):
@@ -60,23 +56,23 @@ def test_use_factor_true_forces_route_anywhere(target):
     assert float(np.max(np.abs(np.asarray(m) - np.asarray(t.mean)))) < 0.05
 
 
-def test_use_factor_false_keeps_dense_trajectory(monkeypatch, target):
+def test_use_factor_false_keeps_dense_trajectory(target):
     t = target
     regf = Regularizers().linear(20.0)
     g_dense = BaM(D=t.d, lp=t.lp, lp_g=t.lp_g)
     m_ref, c_ref = g_dense.fit(jax.random.PRNGKey(0), regf=regf, niter=100,
                                batch_size=8, verbose=False)
-    g = _tpu_bam(monkeypatch, t, use_factor=False)
+    g = _factor_bam(t, use_factor=False)
     assert not g._factor_route(True)
     m, c = g.fit(jax.random.PRNGKey(0), regf=regf, niter=100, batch_size=8,
                  verbose=False)
-    # sqrt_method differs on_tpu ("newton" vs "eigh") so compare loosely.
-    np.testing.assert_allclose(np.asarray(m), np.asarray(m_ref), atol=1e-4)
+    # Same dense step (sqrt_method "auto" is eigh everywhere): bitwise.
+    np.testing.assert_array_equal(np.asarray(m), np.asarray(m_ref))
 
 
-def test_return_state_is_vistate_with_consistent_chol(monkeypatch, target):
+def test_return_state_is_vistate_with_consistent_chol(target):
     t = target
-    g = _tpu_bam(monkeypatch, t)
+    g = _factor_bam(t)
     st = g.fit(jax.random.PRNGKey(0), regf=Regularizers().linear(20.0),
                niter=60, batch_size=8, verbose=False, return_state=True)
     assert isinstance(st, VIState)
@@ -86,14 +82,14 @@ def test_return_state_is_vistate_with_consistent_chol(monkeypatch, target):
                                np.asarray(st.cov), atol=1e-6)
 
 
-def test_state_resume_continues_fit(monkeypatch, target):
+def test_state_resume_continues_fit(target):
     """Warm-starting from a returned VIState continues converging (the
     factor handed over is the state's Cholesky — same distribution; the
     resumed eps draws multiply a different-but-valid factor, so this is a
     distributional resume, not a bitwise one — documented)."""
     t = target
     regf = Regularizers().linear(20.0)
-    g = _tpu_bam(monkeypatch, t)
+    g = _factor_bam(t)
     st = g.fit(jax.random.PRNGKey(0), regf=regf, niter=150, batch_size=8,
                verbose=False, return_state=True)
     st2 = g.fit(jax.random.PRNGKey(1), regf=regf, niter=150, batch_size=8,
@@ -104,7 +100,7 @@ def test_state_resume_continues_fit(monkeypatch, target):
     assert float(np.max(np.abs(c - np.asarray(t.cov)))) < 0.1
 
 
-def test_numpy_lp_g_still_uses_dense_eager_path(monkeypatch, target):
+def test_numpy_lp_g_still_uses_dense_eager_path(target):
     """Non-traceable callables must keep the dense eager loop (the factor
     route requires tracing)."""
     t = target
@@ -112,7 +108,7 @@ def test_numpy_lp_g_still_uses_dense_eager_path(monkeypatch, target):
     def lp_g_np(x):
         return np.asarray(t.lp_g(jnp.asarray(np.asarray(x))))
 
-    g = _tpu_bam(monkeypatch, t)
+    g = _factor_bam(t)
     g.lp_g = lambda x: lp_g_np(np.asarray(x))  # numpy in/out
     m, c = g.fit(jax.random.PRNGKey(0), regf=Regularizers().linear(20.0),
                  niter=60, batch_size=8, verbose=False)

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import scipy.linalg as sla
 
-from gsmvi_tpu.ops.bam import (Regularizers, bam_batch_stats,
+from gsmvi_jax.ops.bam import (Regularizers, bam_batch_stats,
                                bam_lowrank_update, bam_update)
 
 
@@ -131,7 +131,7 @@ def test_bam_limits_to_gsm_at_infinite_reg(rng):
     """arXiv:2402.14758 Prop.: BaM with B=1 recovers the GSM update as
     reg -> inf; convergence rate O(1/reg).  Cross-algorithm consistency
     check pinning both kernels."""
-    from gsmvi_tpu.ops.gsm import gsm_update
+    from gsmvi_jax.ops.gsm import gsm_update
 
     d = 6
     mu0 = rng.normal(size=d)
@@ -166,8 +166,8 @@ def test_auto_lowrank_routing_matches_forced_fullrank():
     approximation."""
     import jax
 
-    from gsmvi_tpu import BaM, Regularizers
-    from gsmvi_tpu.models import dense_gaussian
+    from gsmvi_jax import BaM, Regularizers
+    from gsmvi_jax.models import dense_gaussian
 
     t = dense_gaussian(jax.random.PRNGKey(3), 40)
     kw = dict(niter=40, batch_size=4, verbose=False, retries=0)

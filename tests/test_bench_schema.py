@@ -15,9 +15,11 @@ def _run_fake_main(monkeypatch, tmp_path):
 
     def fake_matrix(targets):
         return {name: {str(d): dict(fake_cell) for d in (64, 256, 1024)}
-                for name in ("gsm", "gsm_fused", "factor_gsm")}
+                for name in ("gsm", "factor_gsm", "bam")}
 
     monkeypatch.setenv("BENCH_MATRIX_PATH", str(tmp_path / "m.json"))
+    # No compile cache for a fake run (it would stay set for the worker).
+    monkeypatch.setattr(bench, "_setup_cache", lambda: None)
     monkeypatch.setattr(bench, "bench_matrix", fake_matrix)
     monkeypatch.setattr(bench, "time_reference_structure", lambda t: 5.0)
     monkeypatch.setattr(bench, "_targets", lambda: {
@@ -36,11 +38,11 @@ def test_bench_main_emits_valid_schema(monkeypatch, capsys, tmp_path):
     assert d["unit"] == "iters/s"
     assert isinstance(d["value"], float) and d["value"] == 100.0
     assert d["vs_baseline"] == 20.0
-    assert d["path"] in ("gsm", "gsm_fused", "factor_gsm")
+    assert d["path"] in ("gsm", "factor_gsm")
     # The full matrix rides its OWN earlier line + a file, not the final line.
     m = json.loads(lines[-2])
     assert m["artifact"] == "bench_matrix"
-    assert set(m["matrix"]) == {"gsm", "gsm_fused", "factor_gsm"}
+    assert set(m["matrix"]) == {"gsm", "factor_gsm", "bam"}
     with open(matrix_file) as fh:
         assert json.load(fh)["matrix"] == m["matrix"]
 
@@ -62,10 +64,9 @@ def test_bench_final_line_parses_under_tail_window(monkeypatch, capsys,
     assert len(final) < 220
 
 
-def test_time_fit_prefers_fastest_attempt(monkeypatch):
-    """Noise only inflates time: the estimator must keep the BEST of its two
-    timed attempts (a stalled attempt must not win) and cap the differential
-    at 2x the single-run rate."""
+def test_time_fit_times_one_warm_run(monkeypatch):
+    """One untimed warm-up run (compilation), then exactly one timed run:
+    it/s = (niter + 1) / elapsed of the second run."""
     import bench
 
     class T:
@@ -73,25 +74,15 @@ def test_time_fit_prefers_fastest_attempt(monkeypatch):
         mean = np.zeros(4)
         cov = np.eye(4)
 
-    # perf_counter consumed as: [t0,t1-end] x (n1 then n2) per attempt.
-    # Attempt 1 (stalled): n1 takes 1 s, n2 takes 11 s -> diff
-    #   (100-25)/(11-1) = 7.5 it/s.  Attempt 2 (clean): n1 0.25 s, n2 1 s
-    #   -> diff 75/0.75 = 100 it/s.  The attempts disagree >1.35x, so a
-    #   third CORROBORATING attempt runs (also clean, 100 it/s) and the
-    #   result is 100, not 7.5.
-    seq = iter([0.0, 1.0,   1.0, 12.0,      # attempt 1: t1=1, t2=11
-                12.0, 12.25, 12.25, 13.25,  # attempt 2: t1=0.25, t2=1
-                14.0, 14.25, 14.25, 15.25])  # attempt 3: confirms 100
+    calls = []
+    seq = iter([10.0, 12.0])  # t0, t1 of the timed run only
     monkeypatch.setattr(bench.time, "perf_counter", lambda: next(seq))
-    ips, em, ec = bench._time_fit(
-        lambda n: (np.zeros(4), np.eye(4)), 100, T())
-    assert ips == 100.0
 
-    # Cap: t2 barely above t1 -> raw diff 75/0.01 = 7500 it/s, but single
-    # = 101/1.01 ~ 100 -> capped at 2x single ~ 200.
-    seq = iter([0.0, 1.0, 1.0, 2.01,
-                3.0, 4.0, 4.0, 5.01])
-    monkeypatch.setattr(bench.time, "perf_counter", lambda: next(seq))
-    ips, em, ec = bench._time_fit(
-        lambda n: (np.zeros(4), np.eye(4)), 100, T())
-    assert abs(ips - 2.0 * (101 / 1.01)) < 1e-6
+    def run(n):
+        calls.append(n)
+        return np.zeros(4), np.eye(4)
+
+    ips, em, ec = bench._time_fit(run, 99, T())
+    assert calls == [99, 99]
+    assert ips == 50.0
+    assert (em, ec) == (0.0, 0.0)

@@ -7,10 +7,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gsmvi_tpu import GSM
-from gsmvi_tpu.models import dense_gaussian
-from gsmvi_tpu.parallel import blocked_cholesky
-from gsmvi_tpu.parallel.large_d import cov_sharding, make_mesh_2d
+from gsmvi_jax import GSM
+from gsmvi_jax.models import dense_gaussian
+from gsmvi_jax.parallel import blocked_cholesky
+from gsmvi_jax.parallel.large_d import cov_sharding, make_mesh_2d
 
 
 def _spd(rng, d):

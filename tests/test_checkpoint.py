@@ -4,9 +4,9 @@ import jax
 import pytest
 import numpy as np
 
-from gsmvi_tpu import GSM
-from gsmvi_tpu.models import dense_gaussian
-from gsmvi_tpu.utils.checkpoint import load_state, save_state
+from gsmvi_jax import GSM
+from gsmvi_jax.models import dense_gaussian
+from gsmvi_jax.utils.checkpoint import load_state, save_state
 
 
 def test_save_load_roundtrip(tmp_path):
@@ -68,10 +68,10 @@ def test_factor_state_roundtrip_resumes_exactly(tmp_path):
     materialized cov/chol properties and load crashed resume)."""
     import jax
 
-    from gsmvi_tpu import FactorGSM
-    from gsmvi_tpu.gsm_factor import FactorVIState
-    from gsmvi_tpu.models import dense_gaussian
-    from gsmvi_tpu.utils.checkpoint import load_state, save_state
+    from gsmvi_jax import FactorGSM
+    from gsmvi_jax.gsm_factor import FactorVIState
+    from gsmvi_jax.models import dense_gaussian
+    from gsmvi_jax.utils.checkpoint import load_state, save_state
 
     t = dense_gaussian(jax.random.PRNGKey(0), 8)
     fg = FactorGSM(D=8, lp=t.lp, lp_g=t.lp_g)
@@ -99,7 +99,7 @@ def test_orbax_roundtrip_and_resume(tmp_path):
     executed under test): save -> restore equals the npz-restored state
     field-for-field and resumes the exact trajectory."""
     pytest.importorskip("orbax.checkpoint")
-    from gsmvi_tpu.utils.checkpoint import restore_orbax, save_orbax
+    from gsmvi_jax.utils.checkpoint import restore_orbax, save_orbax
 
     t = dense_gaussian(jax.random.PRNGKey(31), 6)
     gsm = GSM(D=t.d, lp=t.lp, lp_g=t.lp_g)

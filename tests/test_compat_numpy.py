@@ -3,9 +3,9 @@ end-to-end recovery with an int seed (reference gsmvi/gsm_numpy.py parity)."""
 
 import numpy as np
 
-from gsmvi_tpu.compat.gsm_numpy import GSM as NumpyGSM
-from gsmvi_tpu.compat.gsm_numpy import gsm_update as gsm_update_np
-from gsmvi_tpu.ops.gsm import gsm_update as gsm_update_jax
+from gsmvi_jax.compat.gsm_numpy import GSM as NumpyGSM
+from gsmvi_jax.compat.gsm_numpy import gsm_update as gsm_update_np
+from gsmvi_jax.ops.gsm import gsm_update as gsm_update_jax
 
 
 def test_numpy_kernel_equals_jax_kernel(rng):

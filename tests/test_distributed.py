@@ -28,7 +28,7 @@ _CHILD = textwrap.dedent("""
     from jax.experimental.shard_map import shard_map
     from jax.sharding import Mesh, PartitionSpec as P
 
-    from gsmvi_tpu.parallel.distributed import initialize_distributed
+    from gsmvi_jax.parallel.distributed import initialize_distributed
 
     pid, port = int(sys.argv[1]), sys.argv[2]
     ok = initialize_distributed(coordinator_address=f"127.0.0.1:{port}",
@@ -110,9 +110,9 @@ _CHILD_FIT = textwrap.dedent("""
     import jax.numpy as jnp
     from jax.sharding import Mesh
 
-    from gsmvi_tpu import GSM
-    from gsmvi_tpu.models import dense_gaussian
-    from gsmvi_tpu.parallel.distributed import initialize_distributed
+    from gsmvi_jax import GSM
+    from gsmvi_jax.models import dense_gaussian
+    from gsmvi_jax.parallel.distributed import initialize_distributed
 
     pid, port = int(sys.argv[1]), sys.argv[2]
     ok = initialize_distributed(coordinator_address=f"127.0.0.1:{port}",
@@ -175,8 +175,8 @@ def test_two_process_fit_matches_single_process(tmp_path):
     # the distributed fit must land on the same moments.
     import jax
 
-    from gsmvi_tpu import GSM
-    from gsmvi_tpu.models import dense_gaussian
+    from gsmvi_jax import GSM
+    from gsmvi_jax.models import dense_gaussian
 
     d = 12
     t = dense_gaussian(jax.random.PRNGKey(5), d, scale=0.5)
@@ -199,7 +199,7 @@ def test_explicit_misconfiguration_raises():
     code = textwrap.dedent("""
         import jax
         jax.config.update("jax_platforms", "cpu")
-        from gsmvi_tpu.parallel.distributed import initialize_distributed
+        from gsmvi_jax.parallel.distributed import initialize_distributed
         try:
             # Falsy-but-explicit: coordinator_address="" (missing env var)
             # must reach initialize and raise, not silently fall back.
@@ -216,7 +216,7 @@ def test_explicit_misconfiguration_raises():
 
 
 def test_no_arguments_returns_false():
-    from gsmvi_tpu.parallel.distributed import initialize_distributed
+    from gsmvi_jax.parallel.distributed import initialize_distributed
 
     # In-process call: nothing requested -> False, and must NOT initialize.
     assert initialize_distributed() is False

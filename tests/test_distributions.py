@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 from scipy import stats
 
-from gsmvi_tpu.distributions import (Gaussian, mvn_entropy, mvn_kl,
+from gsmvi_jax.distributions import (Gaussian, mvn_entropy, mvn_kl,
                                      mvn_logpdf, mvn_sample, safe_cholesky)
 
 

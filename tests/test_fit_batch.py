@@ -3,9 +3,10 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from gsmvi_tpu import GSM
-from gsmvi_tpu.models import dense_gaussian
+from gsmvi_jax import GSM
+from gsmvi_jax.models import dense_gaussian
 
 
 def test_fit_batch_all_replicas_recover():
@@ -41,7 +42,7 @@ def test_fit_batch_per_replica_warm_start():
 
 
 def test_bam_fit_batch():
-    from gsmvi_tpu import BaM, Regularizers
+    from gsmvi_jax import BaM, Regularizers
 
     t = dense_gaussian(jax.random.PRNGKey(3), 6)
     bam = BaM(D=t.d, lp=t.lp, lp_g=t.lp_g)
@@ -54,7 +55,7 @@ def test_bam_fit_batch():
 
 
 def test_factor_gsm_fit_batch():
-    from gsmvi_tpu import FactorGSM
+    from gsmvi_jax import FactorGSM
 
     t = dense_gaussian(jax.random.PRNGKey(3), 6)
     fg = FactorGSM(D=t.d, lp=t.lp, lp_g=t.lp_g, refresh_every=0)
@@ -67,7 +68,7 @@ def test_factor_gsm_fit_batch():
 
 def test_advi_fit_batch():
     import optax
-    from gsmvi_tpu import ADVI
+    from gsmvi_jax import ADVI
 
     t = dense_gaussian(jax.random.PRNGKey(3), 4)
     advi = ADVI(D=4, lp=t.lp)
@@ -83,11 +84,11 @@ def test_advi_fit_batch():
 
 def test_factor_gsm_fit_batch_ns_xla_solver():
     """The batched-replica NS-XLA step (small_solver="auto" at f32):
-    converges, and its update math is BIT-IDENTICAL to the fused Pallas
-    kernel's interpret-mode trace (same jnp ops, no pallas_call)."""
-    from gsmvi_tpu import FactorGSM
-    from gsmvi_tpu.ops.pallas.fused_step import (gsm_eps_update_fused,
-                                                 gsm_eps_update_ns_xla)
+    converges, and its single update agrees with the exact Cholesky eps
+    step (ops/gsm_eps.py) to the Newton-Schulz chains' accuracy."""
+    from gsmvi_jax import FactorGSM
+    from gsmvi_jax.ops.gsm_eps import apply_eps_step
+    from gsmvi_jax.ops.gsm_eps_ns import gsm_eps_update_ns_xla
 
     t = dense_gaussian(jax.random.PRNGKey(3), 16)
     fg = FactorGSM(D=16, lp=t.lp, lp_g=t.lp_g, dtype=jnp.float32)
@@ -103,7 +104,7 @@ def test_factor_gsm_fit_batch_ns_xla_solver():
     for i in range(3):
         np.testing.assert_allclose(means_c[i], t.mean, atol=1e-2)
 
-    # update-level agreement: NS-XLA == fused kernel (interpret) bitwise
+    # update-level agreement: NS-XLA == exact chol eps step (f32 inputs)
     rng = np.random.default_rng(0)
     b, d = 8, 32
     eps = jnp.asarray(rng.normal(size=(b, d)), jnp.float32)
@@ -111,17 +112,18 @@ def test_factor_gsm_fit_batch_ns_xla_solver():
     mu = jnp.asarray(rng.normal(size=(d,)), jnp.float32)
     f = (jnp.eye(d, dtype=jnp.float32)
          + 0.01 * jnp.asarray(rng.normal(size=(d, d)), jnp.float32))
-    mk, fk, gk = gsm_eps_update_fused(eps, vs, mu, f, interpret=True)
+    mc, fc, gc = apply_eps_step(mu, f, eps, vs)
     mx, fx, gx = gsm_eps_update_ns_xla(eps, vs, mu, f)
-    np.testing.assert_array_equal(np.asarray(mk), np.asarray(mx))
-    np.testing.assert_array_equal(np.asarray(fk), np.asarray(fx))
-    assert bool(gk) == bool(gx)
+    assert bool(gc) and bool(gx)
+    np.testing.assert_allclose(np.asarray(mx), np.asarray(mc), atol=1e-5)
+    np.testing.assert_allclose(np.asarray(fx @ fx.T), np.asarray(fc @ fc.T),
+                               atol=1e-4)
 
 
 def test_factor_gsm_fit_batch_ns_xla_vmaps_batched():
     """The NS-XLA step under vmap stays per-replica exact: replica j of the
     batched fit equals a 1-replica batched fit with the same key."""
-    from gsmvi_tpu import FactorGSM
+    from gsmvi_jax import FactorGSM
 
     t = dense_gaussian(jax.random.PRNGKey(3), 12)
     fg = FactorGSM(D=12, lp=t.lp, lp_g=t.lp_g, dtype=jnp.float32)
@@ -133,7 +135,7 @@ def test_factor_gsm_fit_batch_ns_xla_vmaps_batched():
 
 
 def test_factor_bam_fit_batch():
-    from gsmvi_tpu import FactorBaM, Regularizers
+    from gsmvi_jax import FactorBaM, Regularizers
 
     t = dense_gaussian(jax.random.PRNGKey(3), 8)
     bam = FactorBaM(D=t.d, lp=t.lp, lp_g=t.lp_g)
@@ -151,74 +153,49 @@ def test_factor_bam_fit_batch():
     np.testing.assert_allclose(covs[1], c_ref, atol=1e-8)
 
 
-def _fused_factor_gsm(t, d, **kw):
-    from gsmvi_tpu import FactorGSM
+def test_factor_gsm_fit_batch_chol_matches_single_fits():
+    """Replica j of fit_batch(small_solver="chol") runs the same pure step
+    as fit() with key j: trajectories coincide to rounding."""
+    from gsmvi_jax import FactorGSM
 
-    g = FactorGSM(D=d, lp=t.lp, lp_g=t.lp_g, dtype=jnp.float32,
-                  pallas_score=t.pallas_score, **kw)
-    g._interpret = True
-    return g
-
-
-def test_factor_gsm_fit_batch_fused_matches_single_fits(monkeypatch):
-    """Round-5 K-replica fused kernel (ops/pallas/batch_fused.py): every
-    replica of the batched fused fit is BIT-IDENTICAL to the same-key
-    single fused fit — eps is fold_in(replica_key, absolute_step) in both,
-    and the kernel math is the shared _eps_smallspace_ns (interpret mode).
-    niter is chosen indivisible by steps_per_call to cross the masked-
-    remainder path."""
-    import gsmvi_tpu.gsm_factor as gf_mod
-
-    monkeypatch.setattr(gf_mod, "on_tpu", lambda: True)
     d, b, niter = 8, 8, 45
     t = dense_gaussian(jax.random.PRNGKey(5), d, scale=0.3)
-    g = _fused_factor_gsm(t, d, steps_per_call=4)
+    g = FactorGSM(D=d, lp=t.lp, lp_g=t.lp_g, dtype=jnp.float32)
     keys = jax.random.split(jax.random.PRNGKey(0), 3)
-    assert g._batch_fused_ok(b, "fused")
-    assert not g._batch_fused_ok(b, "auto")  # throughput default stays NS
     st = g.fit_batch(keys, niter=niter, batch_size=b, return_state=True,
-                     small_solver="fused")
+                     small_solver="chol")
     assert st.mean.shape == (3, d)
     for i in range(3):
         si = g.fit(keys[i], niter=niter, batch_size=b, verbose=False,
                    return_state=True)
-        np.testing.assert_array_equal(np.asarray(st.mean[i]),
-                                      np.asarray(si.mean))
-        np.testing.assert_array_equal(np.asarray(st.factor[i]),
-                                      np.asarray(si.factor))
+        np.testing.assert_allclose(np.asarray(st.mean[i]),
+                                   np.asarray(si.mean), atol=1e-5)
+        np.testing.assert_allclose(np.asarray(st.factor[i]),
+                                   np.asarray(si.factor), atol=1e-5)
         assert int(st.n_accepted[i]) == int(si.n_accepted)
         assert int(st.step[i]) == int(si.step)
 
 
-def test_factor_gsm_fit_batch_fused_converges(monkeypatch):
-    """Batched fused replicas recover the target moments end-to-end."""
-    import gsmvi_tpu.gsm_factor as gf_mod
+@pytest.mark.parametrize("solver", ["fused", "eigh", ""])
+def test_factor_gsm_fit_batch_rejects_unknown_solver(solver):
+    """Only "auto", "ns" and "chol" exist; the removed fused kernel's
+    "fused" (and any typo) raises instead of silently falling back."""
+    from gsmvi_jax import FactorGSM
 
-    monkeypatch.setattr(gf_mod, "on_tpu", lambda: True)
-    d = 8
-    t = dense_gaussian(jax.random.PRNGKey(5), d, scale=0.3)
-    g = _fused_factor_gsm(t, d, steps_per_call=8)
-    keys = jax.random.split(jax.random.PRNGKey(1), 4)
-    means, covs = g.fit_batch(keys, niter=400, batch_size=8,
-                              small_solver="fused")
-    cscale = float(np.abs(np.asarray(t.cov)).max())
-    for i in range(4):
-        np.testing.assert_allclose(np.asarray(means[i]), np.asarray(t.mean),
-                                   atol=0.05)
-        np.testing.assert_allclose(np.asarray(covs[i]), np.asarray(t.cov),
-                                   atol=0.08 * cscale)
+    t = dense_gaussian(jax.random.PRNGKey(5), 4)
+    g = FactorGSM(D=4, lp=t.lp, lp_g=t.lp_g, dtype=jnp.float32)
+    with pytest.raises(ValueError, match="small_solver"):
+        g.fit_batch(jax.random.split(jax.random.PRNGKey(0), 2), niter=2,
+                    batch_size=4, small_solver=solver)
 
 
-def test_gsm_class_fit_batch_routes_to_factor(monkeypatch):
-    """ADVICE r4: the GSM class's TPU default delegates fit_batch to
+def test_gsm_class_fit_batch_routes_to_factor():
+    """With use_factor=True the GSM class delegates fit_batch to
     FactorGSM.fit_batch (like fit); the dense vmapped step stays for
     use_factor=False."""
-    import gsmvi_tpu.gsm as gsm_mod
-
-    monkeypatch.setattr(gsm_mod, "on_tpu", lambda: True)
     d = 8
     t = dense_gaussian(jax.random.PRNGKey(5), d, scale=0.3)
-    g = GSM(D=d, lp=t.lp, lp_g=t.lp_g, dtype=jnp.float32)
+    g = GSM(D=d, lp=t.lp, lp_g=t.lp_g, dtype=jnp.float32, use_factor=True)
     keys = jax.random.split(jax.random.PRNGKey(0), 3)
     means, covs = g.fit_batch(keys, niter=300, batch_size=8)
     fg = g._get_factor_fitter()

@@ -7,8 +7,8 @@ import numpy as np
 import optax
 import pytest
 
-from gsmvi_tpu import ADVI, BaM, GSM, Regularizers
-from gsmvi_tpu.models import dense_gaussian
+from gsmvi_jax import ADVI, BaM, GSM, Regularizers
+from gsmvi_jax.models import dense_gaussian
 
 
 @pytest.fixture(scope="module")
@@ -132,8 +132,8 @@ def test_advi_return_losses_false_same_trajectory():
     the optimization trajectory."""
     import optax
 
-    from gsmvi_tpu import ADVI
-    from gsmvi_tpu.models import dense_gaussian
+    from gsmvi_jax import ADVI
+    from gsmvi_jax.models import dense_gaussian
 
     t = dense_gaussian(jax.random.PRNGKey(0), 6)
     kw = dict(niter=60, batch_size=8, verbose=False)

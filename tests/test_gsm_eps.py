@@ -13,8 +13,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gsmvi_tpu.ops.gsm import gsm_update_stats
-from gsmvi_tpu.ops.gsm_eps import (apply_eps_step, eps_core,
+from gsmvi_jax.ops.gsm import gsm_update_stats
+from gsmvi_jax.ops.gsm_eps import (apply_eps_step, eps_core,
                                    gsm_eps_factor_update)
 
 
@@ -78,7 +78,7 @@ def test_apply_eps_step_reverts_on_violation(rng):
 
 
 def test_f32_accuracy(rng):
-    """f32 path (the TPU dtype): proposal matches dense to f32 tolerance."""
+    """f32 path (the device dtype): proposal matches dense to f32 tolerance."""
     b, d = 32, 128
     f = (0.3 * rng.normal(size=(d, d)) + np.eye(d)).astype(np.float32)
     mu = rng.normal(size=d).astype(np.float32)
@@ -98,8 +98,8 @@ def test_f32_accuracy(rng):
 
 
 def test_fitter_end_to_end_recovery():
-    from gsmvi_tpu import FactorGSM
-    from gsmvi_tpu.models import dense_gaussian
+    from gsmvi_jax import FactorGSM
+    from gsmvi_jax.models import dense_gaussian
 
     t = dense_gaussian(jax.random.PRNGKey(3), 24)
     fg = FactorGSM(D=t.d, lp=t.lp, lp_g=t.lp_g)  # method="eps" default

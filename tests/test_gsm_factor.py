@@ -6,10 +6,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gsmvi_tpu import FactorGSM, GSM
-from gsmvi_tpu.models import dense_gaussian, ill_conditioned_gaussian
-from gsmvi_tpu.ops.gsm import gsm_update_stats
-from gsmvi_tpu.ops.gsm_factor import (factor_gsm_step_stats, factor_refresh,
+from gsmvi_jax import FactorGSM, GSM
+from gsmvi_jax.models import dense_gaussian, ill_conditioned_gaussian
+from gsmvi_jax.ops.gsm import gsm_update_stats
+from gsmvi_jax.ops.gsm_factor import (factor_gsm_step_stats, factor_refresh,
                                       factor_to_cov)
 
 
@@ -118,7 +118,7 @@ class TestTwoPhase:
     """v2 (two-phase update/downdate, QR-free) factor step."""
 
     def test_single_step_exact(self, rng):
-        from gsmvi_tpu.ops.gsm_factor import factor_gsm_step_stats_v2
+        from gsmvi_jax.ops.gsm_factor import factor_gsm_step_stats_v2
 
         d, b = 10, 4
         mu0 = rng.normal(size=d)
@@ -139,7 +139,7 @@ class TestTwoPhase:
 
     def test_wide_batch(self, rng):
         """2B > D regime (the one that broke the G^{-1/2} formulation)."""
-        from gsmvi_tpu.ops.gsm_factor import factor_gsm_step_stats_v2
+        from gsmvi_jax.ops.gsm_factor import factor_gsm_step_stats_v2
 
         d, b = 6, 16
         mu0 = rng.normal(size=d)
@@ -162,7 +162,7 @@ class TestTwoPhase:
         np.testing.assert_allclose(cov, t.cov, atol=1e-2)
 
     def test_downdate_pd_violation_detected(self, rng):
-        from gsmvi_tpu.ops.gsm_factor import factor_gsm_step_stats_v2
+        from gsmvi_jax.ops.gsm_factor import factor_gsm_step_stats_v2
 
         d, b = 4, 1
         mu0 = np.zeros(d)
@@ -173,17 +173,3 @@ class TestTwoPhase:
         dmu, ds = gsm_update_stats(x, v, mu0, np.eye(d))
         dense_pd = np.all(np.linalg.eigvalsh(np.eye(d) + np.asarray(ds)) > 0)
         assert bool(good) == bool(dense_pd)
-
-
-def test_steps_per_call_auto_rule():
-    """None -> dispatch-amortization depth picked by D (measured sweep:
-    16 pays for D<=128, flat above); explicit ints honored."""
-    from gsmvi_tpu import FactorGSM
-
-    lp = lambda x: -0.5 * (x * x).sum(-1)
-    lp_g = lambda x: -x
-    assert FactorGSM(D=64, lp=lp, lp_g=lp_g).steps_per_call == 16
-    assert FactorGSM(D=128, lp=lp, lp_g=lp_g).steps_per_call == 16
-    assert FactorGSM(D=256, lp=lp, lp_g=lp_g).steps_per_call == 8
-    assert FactorGSM(D=256, lp=lp, lp_g=lp_g,
-                     steps_per_call=4).steps_per_call == 4

@@ -1,17 +1,16 @@
-"""GSM's factor-route delegation (round-4, mirrors BaM's): on TPU with a
-traceable lp_g, ``GSM.fit`` runs the FactorGSM eps algebra (identical math,
-no per-step D x D Cholesky) while keeping the dense VIState surface.  CPU
-tests drive it by monkeypatching the module's on_tpu — the delegated fit
-then runs the XLA eps path."""
+"""GSM's factor-route delegation (mirrors BaM's): with ``use_factor=True``
+and a traceable lp_g, ``GSM.fit`` runs the FactorGSM eps algebra (identical
+math, no per-step D x D Cholesky) while keeping the dense VIState surface.
+``use_factor="auto"`` keeps the dense path on every platform."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gsmvi_tpu import GSM, FactorGSM
-from gsmvi_tpu.models import dense_gaussian
-from gsmvi_tpu.state import VIState
+from gsmvi_jax import GSM, FactorGSM
+from gsmvi_jax.models import dense_gaussian
+from gsmvi_jax.state import VIState
 
 
 @pytest.fixture
@@ -19,17 +18,14 @@ def target():
     return dense_gaussian(jax.random.PRNGKey(7), 6, scale=0.5)
 
 
-def _tpu_gsm(monkeypatch, t, **kw):
-    import gsmvi_tpu.gsm as gsm_mod
-
-    monkeypatch.setattr(gsm_mod, "on_tpu", lambda: True)
+def _factor_gsm(t, **kw):
+    kw.setdefault("use_factor", True)
     return GSM(D=t.d, lp=t.lp, lp_g=t.lp_g, **kw)
 
 
-def test_auto_routes_to_factor_on_tpu_and_matches_factorgsm(monkeypatch,
-                                                            target):
+def test_use_factor_true_matches_factorgsm(target):
     t = target
-    g = _tpu_gsm(monkeypatch, t)
+    g = _factor_gsm(t)
     assert g._factor_route(True, 8)
     m, c = g.fit(jax.random.PRNGKey(0), niter=400, batch_size=8,
                  verbose=False)
@@ -44,10 +40,10 @@ def test_auto_routes_to_factor_on_tpu_and_matches_factorgsm(monkeypatch,
     assert float(np.max(np.abs(np.asarray(c) - np.asarray(t.cov)))) < 0.1
 
 
-def test_off_tpu_auto_keeps_dense_path(target):
+def test_auto_keeps_dense_path(target):
     t = target
     g = GSM(D=t.d, lp=t.lp, lp_g=t.lp_g)
-    assert not g._factor_route(True, 8)  # CPU tests: on_tpu() is False
+    assert not g._factor_route(True, 8)  # "auto": dense on every platform
 
 
 def test_use_factor_true_forces_route_anywhere(target):
@@ -59,32 +55,32 @@ def test_use_factor_true_forces_route_anywhere(target):
     assert float(np.max(np.abs(np.asarray(m) - np.asarray(t.mean)))) < 0.05
 
 
-def test_use_factor_false_keeps_dense_trajectory(monkeypatch, target):
+def test_use_factor_false_keeps_dense_trajectory(target):
     t = target
     g_dense = GSM(D=t.d, lp=t.lp, lp_g=t.lp_g)
     m_ref, c_ref = g_dense.fit(jax.random.PRNGKey(0), niter=100,
                                batch_size=8, verbose=False)
-    g = _tpu_gsm(monkeypatch, t, use_factor=False)
+    g = _factor_gsm(t, use_factor=False)
     assert not g._factor_route(True, 8)
     m, c = g.fit(jax.random.PRNGKey(0), niter=100, batch_size=8,
                  verbose=False)
-    # Same dense step on both sides (the XLA op sequence; the fused update
-    # kernel is hard-gated on a real TPU backend): bitwise trajectory.
+    # Same dense step on both sides: bitwise trajectory.
     np.testing.assert_array_equal(np.asarray(m), np.asarray(m_ref))
     np.testing.assert_array_equal(np.asarray(c), np.asarray(c_ref))
 
 
-def test_sharded_sigma_configs_keep_dense_path(monkeypatch, target):
+def test_sharded_sigma_configs_keep_dense_path(target):
     """cov_sharding/chol_block describe a partitioned DENSE covariance; the
     factor route cannot honor them and must not engage."""
     t = target
-    g = _tpu_gsm(monkeypatch, t, chol_block=2)
-    assert not g._factor_route(True, 8)
+    g = _factor_gsm(t, chol_block=2)
+    with pytest.warns(UserWarning, match="cov_sharding/chol_block"):
+        assert not g._factor_route(True, 8)
 
 
-def test_return_state_is_vistate_with_consistent_chol(monkeypatch, target):
+def test_return_state_is_vistate_with_consistent_chol(target):
     t = target
-    g = _tpu_gsm(monkeypatch, t)
+    g = _factor_gsm(t)
     st = g.fit(jax.random.PRNGKey(0), niter=60, batch_size=8,
                verbose=False, return_state=True)
     assert isinstance(st, VIState)
@@ -94,13 +90,13 @@ def test_return_state_is_vistate_with_consistent_chol(monkeypatch, target):
                                np.asarray(st.cov), atol=1e-6)
 
 
-def test_state_resume_continues_fit(monkeypatch, target):
+def test_state_resume_continues_fit(target):
     """Warm-starting from a returned VIState continues converging (the
     factor handed over is the state's Cholesky — same distribution; the
     resumed eps draws multiply a different-but-valid factor, so this is a
     distributional resume, not a bitwise one — documented)."""
     t = target
-    g = _tpu_gsm(monkeypatch, t)
+    g = _factor_gsm(t)
     st = g.fit(jax.random.PRNGKey(0), niter=200, batch_size=8,
                verbose=False, return_state=True)
     st2 = g.fit(jax.random.PRNGKey(1), niter=200, batch_size=8,
@@ -111,7 +107,7 @@ def test_state_resume_continues_fit(monkeypatch, target):
     assert float(np.max(np.abs(c - np.asarray(t.cov)))) < 0.1
 
 
-def test_numpy_lp_g_still_uses_dense_eager_path(monkeypatch, target):
+def test_numpy_lp_g_still_uses_dense_eager_path(target):
     """Non-traceable callables must keep the dense eager loop (the factor
     route requires tracing)."""
     t = target
@@ -119,25 +115,23 @@ def test_numpy_lp_g_still_uses_dense_eager_path(monkeypatch, target):
     def lp_g_np(x):
         return np.asarray(t.lp_g(jnp.asarray(np.asarray(x))))
 
-    g = _tpu_gsm(monkeypatch, t)
+    g = _factor_gsm(t)
     g.lp_g = lambda x: lp_g_np(np.asarray(x))  # numpy in/out
-    m, c = g.fit(jax.random.PRNGKey(0), niter=60, batch_size=8,
-                 verbose=False)
+    with pytest.warns(UserWarning, match="not jax-traceable"):
+        m, c = g.fit(jax.random.PRNGKey(0), niter=60, batch_size=8,
+                     verbose=False)
     assert np.all(np.isfinite(np.asarray(m)))
 
 
-def test_huge_batch_keeps_dense_path(monkeypatch, target):
-    """B >= 128 with 2B > D keeps the dense route (round-5 batch sweep:
-    the rank-2B eps small space is then no smaller than the dense problem
-    and measurably ~10x slower at D=256/B=512); explicit use_factor=True
-    warns.  Small-B configs are unaffected."""
+def test_huge_batch_keeps_dense_path(target):
+    """B >= 128 with 2B > D keeps the dense route (the rank-2B eps small
+    space is then no smaller than the dense problem); use_factor=True warns.
+    Small-B configs are unaffected."""
     t = target
-    g = _tpu_gsm(monkeypatch, t)
+    g = _factor_gsm(t)
     assert g._factor_route(True, 8)            # small B: factor route
-    assert not g._factor_route(True, 128)      # 2*128 > 6, B >= 128: dense
-    big = _tpu_gsm(monkeypatch, t)
+    with pytest.warns(UserWarning, match="2\\*batch_size > D"):
+        assert not g._factor_route(True, 128)  # 2*128 > 6, B >= 128: dense
+    big = _factor_gsm(t)
     big.D = 1024
     assert big._factor_route(True, 128)        # 2B=256 <= 1024: factor
-    g_force = _tpu_gsm(monkeypatch, t, use_factor=True)
-    with pytest.warns(UserWarning, match="2\\*batch_size > D"):
-        assert not g_force._factor_route(True, 128)

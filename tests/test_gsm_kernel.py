@@ -11,7 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gsmvi_tpu.ops.gsm import gsm_update, gsm_update_lowmem, gsm_update_stats
+from gsmvi_jax.ops.gsm import gsm_update, gsm_update_lowmem, gsm_update_stats
 
 
 def oracle_single(x, v, mu0, S0):

@@ -4,8 +4,8 @@ import jax
 import numpy as np
 import pytest
 
-from gsmvi_tpu import GSM, KLMonitor, lbfgs_init, map_init
-from gsmvi_tpu.models import dense_gaussian
+from gsmvi_jax import GSM, KLMonitor, lbfgs_init, map_init
+from gsmvi_jax.models import dense_gaussian
 
 
 @pytest.fixture(scope="module")

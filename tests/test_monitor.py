@@ -4,9 +4,9 @@ import jax
 import numpy as np
 import pytest
 
-from gsmvi_tpu import GSM, KLMonitor
-from gsmvi_tpu.models import dense_gaussian
-from gsmvi_tpu.utils.monitors import forward_kl, reverse_kl
+from gsmvi_jax import GSM, KLMonitor
+from gsmvi_jax.models import dense_gaussian
+from gsmvi_jax.utils.monitors import forward_kl, reverse_kl
 
 
 @pytest.fixture(scope="module")
@@ -99,7 +99,7 @@ def test_monitor_with_advi(target):
     """ADVI honors the monitor protocol incl. the scales->cov conversion at
     checkpoints (reference gsmvi/advi.py:93-98)."""
     import optax
-    from gsmvi_tpu import ADVI
+    from gsmvi_jax import ADVI
 
     t = target
     mon = KLMonitor(batch_size_kl=32, checkpoint=100)
@@ -111,7 +111,7 @@ def test_monitor_with_advi(target):
 
 
 def test_monitor_with_bam(target):
-    from gsmvi_tpu import BaM, Regularizers
+    from gsmvi_jax import BaM, Regularizers
 
     t = target
     mon = KLMonitor(batch_size_kl=32, checkpoint=50)
@@ -156,7 +156,7 @@ def test_monitor_ledgers_stay_aligned_when_lp_fails_mid_checkpoint():
     ledger, not a double rkl append that desyncs rkl/fkl/nevals."""
     import jax
 
-    from gsmvi_tpu.utils.monitors import KLMonitor
+    from gsmvi_jax.utils.monitors import KLMonitor
 
     calls = {"n": 0}
 

@@ -3,7 +3,7 @@
 The shipped (5,4,6,7,4) profile was tuned at B=32; at B >= 64 the (B, B)
 small-space Grams' spectra widen and the short chains go SILENTLY biased
 (zero gate rejections — the documented failure mode).  Measured CPU study
-(.scratch/r5_bstudy*.log, D=256): converged cov_err 0.012/0.049/0.21 at
+(D=256): converged cov_err 0.012/0.049/0.21 at
 B=64/128/512 with the short profile vs 2e-4/1.9e-4/3.7e-3 with the long
 (8,6,9,10,6) — matching the exact Cholesky eps path.  The default NS
 profile is therefore batch-resolved (``ns_iters_for_batch``).
@@ -13,13 +13,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gsmvi_tpu import FactorGSM
-from gsmvi_tpu.models import dense_gaussian
-from gsmvi_tpu.ops.gsm_eps import apply_eps_step
-from gsmvi_tpu.ops.pallas.fused_step import (NS_ITERS_DEFAULT,
-                                             NS_ITERS_LARGE_B,
-                                             gsm_eps_update_ns_xla,
-                                             ns_iters_for_batch)
+from gsmvi_jax import FactorGSM
+from gsmvi_jax.models import dense_gaussian
+from gsmvi_jax.ops.gsm_eps import apply_eps_step
+from gsmvi_jax.ops.gsm_eps_ns import (NS_ITERS_DEFAULT, NS_ITERS_LARGE_B,
+                                      gsm_eps_update_ns_xla,
+                                      ns_iters_for_batch)
 
 
 def test_ns_iters_for_batch_resolution():

@@ -22,9 +22,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gsmvi_tpu import GSM
-from gsmvi_tpu.distributions import Gaussian
-from gsmvi_tpu.models.numpyro_compat import from_distribution, from_numpyro_model
+from gsmvi_jax import GSM
+from gsmvi_jax.distributions import Gaussian
+from gsmvi_jax.models.numpyro_compat import from_distribution, from_numpyro_model
 
 HAS_NUMPYRO = True
 try:

@@ -4,8 +4,8 @@ import jax
 import numpy as np
 import pytest
 
-from gsmvi_tpu import GSM, FactorGSM, Posterior
-from gsmvi_tpu.models import dense_gaussian
+from gsmvi_jax import GSM, FactorGSM, Posterior
+from gsmvi_jax.models import dense_gaussian
 from scipy import stats
 
 
@@ -48,8 +48,8 @@ def test_marginal_matches_cov_diag(rng):
 def test_posterior_save_load_roundtrip(tmp_path):
     import jax
 
-    from gsmvi_tpu import Posterior
-    from gsmvi_tpu.models import dense_gaussian
+    from gsmvi_jax import Posterior
+    from gsmvi_jax.models import dense_gaussian
 
     t = dense_gaussian(jax.random.PRNGKey(0), 6)
     post = Posterior.from_fit(t.mean, t.cov)

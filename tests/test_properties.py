@@ -5,15 +5,15 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gsmvi_tpu.config import FitConfig, enable_x64
-from gsmvi_tpu.ops.bam import bam_update
-from gsmvi_tpu.ops.gsm import gsm_update
+from gsmvi_jax.config import FitConfig, enable_x64
+from gsmvi_jax.ops.bam import bam_update
+from gsmvi_jax.ops.gsm import gsm_update
 
 
 def test_gsm_covariance_stays_spd_along_fit():
     """Accepted covariances are SPD at every step (accept_or_revert invariant)."""
-    from gsmvi_tpu import GSM
-    from gsmvi_tpu.models import dense_gaussian
+    from gsmvi_jax import GSM
+    from gsmvi_jax.models import dense_gaussian
 
     t = dense_gaussian(jax.random.PRNGKey(17), 8)
     gsm = GSM(D=t.d, lp=t.lp, lp_g=t.lp_g)

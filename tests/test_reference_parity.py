@@ -74,7 +74,7 @@ def test_gsm_update_matches_reference(ref_mod, rng, b, d):
     mu0 = rng.normal(size=d)
     s0 = _spd(rng, d)
 
-    from gsmvi_tpu.ops.gsm import gsm_update
+    from gsmvi_jax.ops.gsm import gsm_update
 
     m_ref, s_ref = ref_mod.gsm.gsm_update(x, v, mu0, s0)
     m, s = gsm_update(x, v, mu0, s0)
@@ -92,7 +92,7 @@ def test_bam_update_matches_reference(ref_mod, rng, b, d, reg):
     mu0 = rng.normal(size=d)
     s0 = _spd(rng, d)
 
-    from gsmvi_tpu.ops.bam import bam_update
+    from gsmvi_jax.ops.bam import bam_update
 
     m_ref, s_ref = ref_mod.bam.bam_update(x, v, mu0, s0, reg)
     # jitter=0 to match; the reference applies its jitter on the host after
@@ -117,7 +117,7 @@ def test_lowrank_matches_reference_fullrank_transitively(ref_mod, rng):
     mu0 = rng.normal(size=d)
     s0 = _spd(rng, d)
 
-    from gsmvi_tpu.ops.bam import bam_lowrank_update
+    from gsmvi_jax.ops.bam import bam_lowrank_update
 
     m_ref, s_ref = ref_mod.bam.bam_update(x, v, mu0, s0, reg)
     m, s = bam_lowrank_update(x, v, mu0, s0, reg, jitter=0.0,
@@ -136,7 +136,7 @@ def test_gsm_numpy_update_matches_reference(ref_mod, rng):
     mu0 = rng.normal(size=d)
     s0 = _spd(rng, d)
 
-    from gsmvi_tpu.compat.gsm_numpy import gsm_update as np_gsm_update
+    from gsmvi_jax.compat.gsm_numpy import gsm_update as np_gsm_update
 
     m_ref, s_ref = ref_mod.gsm_numpy.gsm_update(x, v, mu0, s0)
     m, s = np_gsm_update(x, v, mu0, s0)

@@ -6,8 +6,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gsmvi_tpu import BaM, FactorGSM, GSM, Regularizers
-from gsmvi_tpu.models import dense_gaussian
+from gsmvi_jax import BaM, FactorGSM, GSM, Regularizers
+from gsmvi_jax.models import dense_gaussian
 
 
 def _explosive_lp_g(scale):

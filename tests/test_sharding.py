@@ -8,12 +8,12 @@ import numpy as np
 import pytest
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from gsmvi_tpu import ADVI, BaM, GSM, Regularizers
-from gsmvi_tpu.models import dense_gaussian
-from gsmvi_tpu.ops.bam import bam_batch_stats
-from gsmvi_tpu.ops.gsm import gsm_update_stats
-from gsmvi_tpu.parallel import make_mesh
-from gsmvi_tpu.parallel.sharded import (sharded_bam_stats, sharded_gsm_stats,
+from gsmvi_jax import ADVI, BaM, GSM, Regularizers
+from gsmvi_jax.models import dense_gaussian
+from gsmvi_jax.ops.bam import bam_batch_stats
+from gsmvi_jax.ops.gsm import gsm_update_stats
+from gsmvi_jax.parallel import make_mesh
+from gsmvi_jax.parallel.sharded import (sharded_bam_stats, sharded_gsm_stats,
                                         sharded_score_eval)
 
 
@@ -113,7 +113,7 @@ def test_batch_actually_sharded(mesh):
 def test_2d_mesh_cov_sharded_fit_matches(eight_devices, target):
     """Stretch goal (SURVEY §2): column-sharded covariance on a 2-D
     (data x model) mesh gives the same fit as unsharded."""
-    from gsmvi_tpu.parallel.large_d import cov_sharding, make_mesh_2d
+    from gsmvi_jax.parallel.large_d import cov_sharding, make_mesh_2d
 
     mesh2 = make_mesh_2d(2, 4)
     t = target
@@ -129,7 +129,7 @@ def test_2d_mesh_cov_sharded_fit_matches(eight_devices, target):
 def test_shard_map_full_fit_matches_gspmd(mesh, target):
     """VERDICT #7: FULL fit through the explicit shard_map step must equal
     the GSPMD fitter's trajectory (same keys, same sampling layout)."""
-    from gsmvi_tpu.parallel.sharded import sharded_gsm_fit
+    from gsmvi_jax.parallel.sharded import sharded_gsm_fit
 
     t = target
     kw = dict(niter=60, batch_size=16, verbose=False)
@@ -148,7 +148,7 @@ def test_shard_map_full_fit_matches_gspmd(mesh, target):
 
 def test_monitored_sharded_fit(mesh, target):
     """KLMonitor under a mesh: the KL estimate reduces over the sharded batch."""
-    from gsmvi_tpu.utils.monitors import KLMonitor
+    from gsmvi_jax.utils.monitors import KLMonitor
 
     t = target
     mon = KLMonitor(batch_size_kl=32, checkpoint=20)
@@ -165,8 +165,8 @@ def test_2d_mesh_factor_gsm_cov_sharded(eight_devices, target):
     column-sharded.  Unlike the dense path (whose D x D Cholesky XLA must
     gather), the eps step is pure matmuls — GSPMD partitions it without any
     full-gather of F.  Must match the unsharded fit trajectory."""
-    from gsmvi_tpu import FactorGSM
-    from gsmvi_tpu.parallel.large_d import cov_sharding, make_mesh_2d
+    from gsmvi_jax import FactorGSM
+    from gsmvi_jax.parallel.large_d import cov_sharding, make_mesh_2d
 
     t = target
     mesh2 = make_mesh_2d(2, 4)
@@ -188,9 +188,9 @@ def test_sharded_step_memory_stays_partitioned(eight_devices):
     bytes; the largest sharded temp must stay well under that)."""
     import jax.numpy as jnp
 
-    from gsmvi_tpu import GSM
-    from gsmvi_tpu.parallel import cov_sharding, make_mesh_2d
-    from gsmvi_tpu.state import init_state
+    from gsmvi_jax import GSM
+    from gsmvi_jax.parallel import cov_sharding, make_mesh_2d
+    from gsmvi_jax.state import init_state
 
     d, b = 1024, 16
     lp = lambda x: -0.5 * jnp.sum(x * x, axis=-1)
@@ -200,7 +200,7 @@ def test_sharded_step_memory_stays_partitioned(eight_devices):
 
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from gsmvi_tpu.state import VIState
+    from gsmvi_jax.state import VIState
 
     rep = NamedSharding(mesh, P())
     stats = {}
@@ -227,30 +227,18 @@ def test_sharded_step_memory_stays_partitioned(eight_devices):
     assert stats["sharded"].temp_size_in_bytes < 0.8 * full_mat
 
 
-def test_mesh_composed_fused_update_matches_unsharded(mesh, target,
-                                                      monkeypatch):
-    """VERDICT r2 item #4: FactorGSM(mesh=...) keeps the fused Pallas
-    update (interpret mode on CPU) — scores shard over the data axis, rows
-    all_gather, the kernel runs replicated — and the trajectory matches the
-    unsharded fused-update path exactly (same key stream)."""
-    import gsmvi_tpu.gsm_factor as gf_mod
-    from gsmvi_tpu import FactorGSM
+def test_mesh_factor_gsm_fit_matches_unsharded(mesh, target):
+    """FactorGSM(mesh=...) shards the MC batch over the data axis (GSPMD
+    reduces the row contractions); the trajectory matches the unsharded
+    fit with the same key up to reordered f32 sums."""
+    from gsmvi_jax import FactorGSM
 
     t = target
-    monkeypatch.setattr(gf_mod, "on_tpu", lambda: True)
     kw = dict(niter=150, batch_size=16, verbose=False, return_state=True)
-
-    g_sh = FactorGSM(D=t.d, lp=t.lp, lp_g=t.lp_g, mesh=mesh,
-                     dtype=jnp.float32)
-    g_sh._interpret = True
-    assert g_sh._pallas_mode(16) == "update"
-    s_sh = g_sh.fit(jax.random.PRNGKey(4), **kw)
-
-    g_un = FactorGSM(D=t.d, lp=t.lp, lp_g=t.lp_g, dtype=jnp.float32)
-    g_un._interpret = True
-    assert g_un._pallas_mode(16) == "update"
-    s_un = g_un.fit(jax.random.PRNGKey(4), **kw)
-
+    s_sh = FactorGSM(D=t.d, lp=t.lp, lp_g=t.lp_g, mesh=mesh,
+                     dtype=jnp.float32).fit(jax.random.PRNGKey(4), **kw)
+    s_un = FactorGSM(D=t.d, lp=t.lp, lp_g=t.lp_g,
+                     dtype=jnp.float32).fit(jax.random.PRNGKey(4), **kw)
     assert int(s_sh.n_accepted) == int(s_un.n_accepted)
     np.testing.assert_allclose(np.asarray(s_sh.mean), np.asarray(s_un.mean),
                                rtol=2e-4, atol=2e-4)
@@ -262,40 +250,31 @@ def test_mesh_composed_fused_update_matches_unsharded(mesh, target,
                                atol=0.25)
 
 
-def test_mesh_fused_gate_requires_divisible_batch(mesh, monkeypatch):
-    import gsmvi_tpu.gsm_factor as gf_mod
-    from gsmvi_tpu import FactorGSM
+def test_mesh_factor_gsm_indivisible_batch_runs(mesh):
+    """A batch that does not divide the data axis (12 over 8 devices) is
+    sharded unevenly by GSPMD and still fits."""
+    from gsmvi_jax import FactorGSM
 
-    monkeypatch.setattr(gf_mod, "on_tpu", lambda: True)
     t = dense_gaussian(jax.random.PRNGKey(21), 12)
     g = FactorGSM(D=t.d, lp=t.lp, lp_g=t.lp_g, mesh=mesh, dtype=jnp.float32)
-    assert g._pallas_mode(12) is None   # 12 % 8 != 0 -> XLA path
-    assert g._pallas_mode(16) == "update"
+    mean, cov = g.fit(jax.random.PRNGKey(0), niter=20, batch_size=12,
+                      verbose=False)
+    assert np.isfinite(np.asarray(mean)).all()
+    assert np.isfinite(np.asarray(cov)).all()
 
 
-def test_mesh_composed_fused_bam_update_matches_unsharded(mesh, target,
-                                                          monkeypatch):
-    """FactorBaM(mesh=...) keeps the fused update kernel + stiff replay
-    under the data mesh; trajectory matches the unsharded fused path."""
-    import gsmvi_tpu.bam_factor as bf_mod
-    from gsmvi_tpu import FactorBaM
+def test_mesh_factor_bam_fit_matches_unsharded(mesh, target):
+    """FactorBaM(mesh=...) under the data mesh matches the unsharded fit
+    with the same key."""
+    from gsmvi_jax import FactorBaM
 
     t = target
-    monkeypatch.setattr(bf_mod, "on_tpu", lambda: True)
     kw = dict(regf=Regularizers().linear(30.0), niter=150, batch_size=16,
               verbose=False, retries=0, return_state=True)
-
-    g_sh = FactorBaM(D=t.d, lp=t.lp, lp_g=t.lp_g, mesh=mesh,
-                     dtype=jnp.float32)
-    g_sh._interpret = True
-    assert g_sh._pallas_mode(16) == "update"
-    s_sh = g_sh.fit(jax.random.PRNGKey(4), **kw)
-
-    g_un = FactorBaM(D=t.d, lp=t.lp, lp_g=t.lp_g, dtype=jnp.float32)
-    g_un._interpret = True
-    assert g_un._pallas_mode(16) == "update"
-    s_un = g_un.fit(jax.random.PRNGKey(4), **kw)
-
+    s_sh = FactorBaM(D=t.d, lp=t.lp, lp_g=t.lp_g, mesh=mesh,
+                     dtype=jnp.float32).fit(jax.random.PRNGKey(4), **kw)
+    s_un = FactorBaM(D=t.d, lp=t.lp, lp_g=t.lp_g,
+                     dtype=jnp.float32).fit(jax.random.PRNGKey(4), **kw)
     assert int(s_sh.n_accepted) == int(s_un.n_accepted)
     np.testing.assert_allclose(np.asarray(s_sh.mean), np.asarray(s_un.mean),
                                rtol=5e-4, atol=5e-4)
@@ -306,18 +285,14 @@ def test_mesh_composed_fused_bam_update_matches_unsharded(mesh, target,
                                atol=0.25)
 
 
-def test_mesh_fused_gate_odd_device_count(eight_devices, monkeypatch):
-    """Odd mesh sizes (batch=2*n fails the kernel's b%4 gate) must fall
-    back to the XLA mesh path, not assert/crash (code-review finding)."""
-    import gsmvi_tpu.gsm_factor as gf_mod
-    from gsmvi_tpu import FactorGSM
-    from gsmvi_tpu.parallel import make_mesh
+def test_mesh_factor_gsm_odd_device_count(eight_devices):
+    """An odd mesh size (3 devices, batch 6) fits on the data mesh."""
+    from gsmvi_jax import FactorGSM
+    from gsmvi_jax.parallel import make_mesh
 
-    monkeypatch.setattr(gf_mod, "on_tpu", lambda: True)
     t = dense_gaussian(jax.random.PRNGKey(21), 12)
     m3 = make_mesh(3)
     g = FactorGSM(D=t.d, lp=t.lp, lp_g=t.lp_g, mesh=m3, dtype=jnp.float32)
-    assert g._pallas_mode(6) is None
     mean, _ = g.fit(jax.random.PRNGKey(0), niter=20, batch_size=6,
                     verbose=False)
     assert np.isfinite(np.asarray(mean)).all()

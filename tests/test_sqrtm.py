@@ -4,7 +4,7 @@ import numpy as np
 import pytest
 import scipy.linalg as sla
 
-from gsmvi_tpu.ops.sqrtm import spd_sqrtm, spd_sqrtm_and_inv, spd_sqrtm_newton
+from gsmvi_jax.ops.sqrtm import spd_sqrtm, spd_sqrtm_and_inv, spd_sqrtm_newton
 
 
 def spd(rng, d, cond):

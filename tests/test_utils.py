@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gsmvi_tpu import GSM
-from gsmvi_tpu.models import dense_gaussian
-from gsmvi_tpu.utils.profiling import fit_throughput, nan_debug, time_fn
+from gsmvi_jax import GSM
+from gsmvi_jax.models import dense_gaussian
+from gsmvi_jax.utils.profiling import fit_throughput, nan_debug, time_fn
 
 
 def test_time_fn_returns_positive():
@@ -38,7 +38,7 @@ def test_nan_debug_toggle():
 
 def test_orbax_checkpoint_roundtrip(tmp_path):
     pytest.importorskip("orbax.checkpoint")
-    from gsmvi_tpu.utils.checkpoint import restore_orbax, save_orbax
+    from gsmvi_jax.utils.checkpoint import restore_orbax, save_orbax
 
     t = dense_gaussian(jax.random.PRNGKey(0), 4)
     gsm = GSM(D=t.d, lp=t.lp, lp_g=t.lp_g)
